@@ -1,4 +1,4 @@
-"""mitgcm_tpu — a TPU-native ocean/atmosphere general circulation model.
+"""mitgcm_tpu — an ocean/atmosphere general circulation model in JAX.
 
 A from-scratch reimplementation of the capabilities of MITgcm (reference:
 Shreyas911/MITgcm, a fork of MITgcm adding Tapenade AD support) in idiomatic
@@ -9,7 +9,8 @@ sea ice, and a jax.grad-based adjoint/state-estimation stack.
 
 Design:
   - fields are jnp arrays shaped [..., ny + 2*OLy, nx + 2*OLx] (k, j, i
-    ordering; x innermost so the lane dimension maps to TPU vector lanes),
+    ordering; x innermost, so neighbouring threads read neighbouring
+    addresses and loads coalesce),
     carrying a halo ring of width (OLy, OLx) that mirrors the reference's
     tile "overlap" regions (model/inc/SIZE.h:40-62).
   - halo exchange is a cyclic wrap fill (the reference WRAPPER topology is

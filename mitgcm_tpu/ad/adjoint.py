@@ -16,6 +16,7 @@ differentiation of the jitted timestep loop:
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, Optional
 
 import jax
@@ -111,8 +112,9 @@ class Control:
         nxp = self.cfg.nx + 2 * self.cfg.olx
         return jnp.zeros((self.cfg.nr, nyp, nxp), dtype)
 
-    def apply(self, state: State, xx):
-        new = getattr(state, self.field) + xx * self.grid.maskC
+    def apply(self, state: State, xx, grid: Optional[Grid] = None):
+        mask = (grid if grid is not None else self.grid).maskC
+        new = getattr(state, self.field) + xx * mask
         return State(**{**state.__dict__, self.field: new})
 
     def pack(self, xx):
@@ -136,7 +138,7 @@ def cost_boxmean_tracer(cfg: Config, grid: Grid, field: str = "theta",
     volume-weighted tracer integral)."""
     oly, olx = cfg.oly, cfg.olx
 
-    def fc(state: State):
+    def fc(state: State, grid: Grid = grid):
         arr = getattr(state, field)
         vol = (grid.rA * grid.drF[:, None, None] * grid.hFacC)
         w = jnp.zeros_like(vol)
@@ -152,15 +154,20 @@ def cost_boxmean_tracer(cfg: Config, grid: Grid, field: str = "theta",
 def make_objective(cfg: Config, grid: Grid, op, forcing: Forcing,
                    state0: State, control: Control, cost_fn: Callable,
                    n_steps: int):
-    """J(xx): apply control, run, evaluate cost. jax.grad of this is the
-    adjoint model (ADTHE_MAIN_LOOP analog)."""
+    """J(xx): apply control, run, evaluate cost_fn(state, grid). jax.grad
+    of this is the adjoint model (ADTHE_MAIN_LOOP analog).
 
-    def J(xx):
-        s = control.apply(state0, xx)
+    J is compiled with the grid, operator, forcing and initial state as
+    arguments: arrays a jitted function closes over are written into the
+    compiled program as literals."""
+
+    @jax.jit
+    def J(xx, grid, op, forcing, state0):
+        s = control.apply(state0, xx, grid)
         s = run_steps(cfg, grid, op, s, forcing, n_steps)
-        return cost_fn(s)
+        return cost_fn(s, grid)
 
-    return J
+    return partial(J, grid=grid, op=op, forcing=forcing, state0=state0)
 
 
 def adjoint_gradient(objective: Callable, xx):

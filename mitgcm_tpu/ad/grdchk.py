@@ -17,14 +17,15 @@ import jax.numpy as jnp
 
 def grdchk(objective: Callable, xx0, positions: Sequence[Tuple[int, ...]],
            eps: float = 1.0e-4):
-    """Return list of dicts: one per checked position."""
+    """Return list of dicts: one per checked position.
+
+    objective: a compiled J(xx), such as adjoint.make_objective returns."""
     fc0, grad = jax.value_and_grad(objective)(xx0)
-    obj = jax.jit(objective)
     results: List[dict] = []
     for pos in positions:
         e = jnp.zeros_like(xx0).at[pos].set(eps)
-        fcp = obj(xx0 + e)
-        fcm = obj(xx0 - e)
+        fcp = objective(xx0 + e)
+        fcm = objective(xx0 - e)
         fd = (fcp - fcm) / (2.0 * eps)
         adj = grad[pos]
         denom = jnp.where(adj != 0.0, adj, 1.0)

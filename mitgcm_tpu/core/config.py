@@ -238,7 +238,7 @@ class Config:
     cg2dMaxIters: int = 150
     # replicate the reference's sequential per-tile dot-product summation
     # order inside cg2d (bit-exact digit matching on solver-amplified
-    # configs); tree-reduction jnp.sum otherwise (the TPU-fast default)
+    # configs); tree-reduction jnp.sum otherwise (the default)
     cg2dExactSums: bool = False
     cg2dTargetResidual: float = 1.0e-7
     cg2dTargetResWunit: float = -1.0

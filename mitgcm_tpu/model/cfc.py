@@ -12,7 +12,7 @@ ADDED to the advection-diffusion tendency inside the normal ptracer
 step: GCHEM_ADD2TR_TENDENCY is defined whenever ALLOW_CFC is,
 GCHEM_OPTIONS.h:23-25, applied via ptracers_apply_forcing.F:73).
 
-TPU design: the atmosphere table and all periodic wind/ice records are
+Design: the atmosphere table and all periodic wind/ice records are
 baked into device arrays at construction; the per-step work is a pair
 of record gathers and an elementwise flux formula fused into the step.
 """

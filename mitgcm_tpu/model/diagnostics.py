@@ -7,7 +7,7 @@ writes MDS files (`<fileName>.<iter10>.data/.meta`) that
 MITgcmutils-compatible readers load, plus ASCII per-level statistics
 files mirroring diagstats_output.F.
 
-TPU-native shape: field computation is a plain JAX function over the
+Design: field computation is a plain JAX function over the
 state pytree (jit-compiled once per stream), accumulation is a
 host-side running sum driven by the python run() loop — diagnostics are
 an IO concern and deliberately stay off the lax.scan bench path.

@@ -18,7 +18,7 @@ the nutrient limitation by a tanh blend (bio_export.F:63-71) — we keep
 the plain min for forward digit-matching and switch to the tanh form
 under AD (both agree to machine precision away from the crossover).
 
-TPU design: everything is elementwise per column — the whole package
+Design: everything is elementwise per column — the whole package
 fuses into the tracer step as vector ops; the only sequential piece is
 the k-scan of light attenuation and the (nr x nr) sinking-flux
 redistribution, both unrolled over the 15 levels.

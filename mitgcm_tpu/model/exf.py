@@ -17,7 +17,7 @@ Implements the exf field pipeline for prescribed surface fluxes:
     relaxation constants folded into tauTheta/SaltClimRelax
     (exf_readparms.F:1076).
 
-TPU-first design: every record is read + spatially interpolated ONCE at
+Design: every record is read + spatially interpolated ONCE at
 setup (host-side numpy); the calendar-aware record/weight selection is
 collapsed into per-field monotone time-knot tables so the in-jit
 evaluation is a plain piecewise-linear lookup (load_fields) — this

@@ -7,8 +7,10 @@ build grid, initialize state, then run the time loop with monitor output.
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional
 
 import jax
@@ -24,6 +26,11 @@ from mitgcm_tpu.io import mds
 from mitgcm_tpu.model import step as step_mod
 from mitgcm_tpu.ops.stencil import cyclic_fill_halo
 from mitgcm_tpu.solver import cg2d as cg2d_mod
+
+
+# package objects forward_step takes (Experiment attributes of these names)
+_PACKAGES = ("kpp", "ggl90", "vmix", "opps", "seaice", "obcs", "op3",
+             "rbcs", "aim", "zonfilt", "thsice", "offline", "cfc", "dic")
 
 
 def cs_global_to_faces(arr, n, mapIO=-1):
@@ -252,8 +259,7 @@ class Experiment:
     def from_dir(cls, input_dir: str, dtype=jnp.float64,
                  strict_config: bool = True, **size_kw):
         if dtype == jnp.float64 and not jax.config.jax_enable_x64:
-            # digit-level verification needs real f64; the JAX_ENABLE_X64 env
-            # var can be pre-empted by platform plugins, so set it directly
+            # digit-level verification needs real f64
             jax.config.update("jax_enable_x64", True)
         cfg = config_mod.load_experiment(input_dir, **size_kw)
         # fail-loudly on deck parameters we would otherwise silently drop
@@ -775,35 +781,63 @@ class Experiment:
         self.state = State(**{**self.state.__dict__, **upd})
 
     # ------------------------------------------------------------------
-    def make_step_fn(self):
-        if getattr(self, "_step_fn", None) is not None:
-            return self._step_fn
-        cfg, grid, op = self.cfg, self.grid, self.op
-        hooks = {}
+    def _step_kwargs(self):
+        """The packages and halo hooks that every runner hands forward_step."""
+        kw = {name: getattr(self, name, None) for name in _PACKAGES}
         if self.cs_fill is not None:
-            hooks = {"fill": self.cs_fill.fill,
-                     "fill_uv": self.cs_fill.fill_uv,
-                     "fill_uv_cg": self.cs_fill.fill_uv_cg}
+            kw.update(fill=self.cs_fill.fill, fill_uv=self.cs_fill.fill_uv,
+                      fill_uv_cg=self.cs_fill.fill_uv_cg)
+        return kw
 
-        def fn(state: State, forcing: Forcing, myIter):
-            return step_mod.forward_step(cfg, grid, op, state, forcing,
-                                         myIter, kpp=self.kpp,
-                                         ggl90=self.ggl90, vmix=self.vmix,
-                                         opps=self.opps,
-                                         seaice=self.seaice,
-                                         obcs=self.obcs, op3=self.op3,
-                                         rbcs=self.rbcs, aim=self.aim,
-                                         zonfilt=self.zonfilt,
-                                         thsice=getattr(self, "thsice",
-                                                        None),
-                                         offline=getattr(self, "offline",
-                                                         None),
-                                         cfc=getattr(self, "cfc", None),
-                                         dic=getattr(self, "dic", None),
-                                         **hooks)
+    def _bind(self, fn):
+        """jax.jit(fn) with this experiment's grid, cg2d operator and the
+        packages' arrays as arguments. fn(*args, grid, op, step_kwargs).
 
-        self._step_fn = jax.jit(fn)
+        Arrays that a jitted function closes over are written into the
+        compiled module as literals: gigabytes at full width, in the
+        module, its cache key and the executable."""
+        kw = self._step_kwargs()
+        pkg = {name: {a: v for a, v in vars(obj).items()
+                      if isinstance(v, (jax.Array, Grid))}
+               for name, obj in kw.items()
+               if name in _PACKAGES and hasattr(obj, "__dict__")}
+
+        def with_packages(*args, grid, op, pkg):
+            full = dict(kw)
+            for name, attrs in pkg.items():
+                full[name] = copy.copy(kw[name])
+                vars(full[name]).update(attrs)
+            return fn(*args, grid, op, full)
+
+        return partial(jax.jit(with_packages), grid=self.grid, op=self.op,
+                       pkg=pkg)
+
+    def make_step_fn(self):
+        """The jitted step(state, forcing, myIter) -> (state, StepDiag)."""
+        if getattr(self, "_step_fn", None) is None:
+            cfg = self.cfg
+            self._step_fn = self._bind(
+                lambda state, forcing, myIter, grid, op, kw:
+                step_mod.forward_step(cfg, grid, op, state, forcing, myIter,
+                                      **kw))
         return self._step_fn
+
+    def make_scan_fn(self):
+        """The jitted scan(state, forcing, iters) -> (state, stacked
+        StepDiag) of run_scan: the steps as one program."""
+        if getattr(self, "_scan_fn", None) is None:
+            cfg = self.cfg
+
+            def scan(state, forcing, iters, grid, op, kw):
+                def body(st, myIter):
+                    new_state, diag = step_mod.forward_step(
+                        cfg, grid, op, st, forcing, myIter, **kw)
+                    # don't stack the per-step 2-D forcing snapshots
+                    return new_state, diag._replace(forc=None)
+                return jax.lax.scan(body, state, iters)
+
+            self._scan_fn = self._bind(scan)
+        return self._scan_fn
 
     def forcing_monitor(self, forc) -> Dict[str, float]:
         """monitor.F:133-146 forcing_* stats (monitorSelect>=3) from the
@@ -811,10 +845,11 @@ class Experiment:
         if self.cfg.monitorSelect < 3 or forc is None:
             return {}
         if not hasattr(self, "_forc_mon_fn"):
-            cfg, grid = self.cfg, self.grid
+            cfg = self.cfg
             self._forc_mon_fn = jax.jit(
-                lambda f: monitor.forcing_stats(cfg, grid, f))
-        return {k: float(v) for k, v in self._forc_mon_fn(forc).items()}
+                lambda f, g: monitor.forcing_stats(cfg, g, f))
+        return {k: float(v)
+                for k, v in self._forc_mon_fn(forc, self.grid).items()}
 
     def initial_forcing(self) -> Dict[str, float]:
         """The init-time effective forcing for the iter-0 monitor record.
@@ -838,9 +873,9 @@ class Experiment:
     def monitor_stats(self, state: Optional[State] = None) -> Dict[str, float]:
         st = state if state is not None else self.state
         if not hasattr(self, "_monitor_fn"):
-            cfg, grid = self.cfg, self.grid
+            cfg = self.cfg
 
-            def mon(s):
+            def mon(s, grid):
                 g = grid
                 if cfg.nonlinFreeSurf > 0 and cfg.select_rStar > 0:
                     # hFac as applied by the last UPDATE_R_STAR =
@@ -895,7 +930,7 @@ class Experiment:
                 return stats
 
             self._monitor_fn = jax.jit(mon)
-        stats = self._monitor_fn(st)
+        stats = self._monitor_fn(st, self.grid)
         return {k: float(v) for k, v in stats.items()}
 
     def run(self, n_steps: Optional[int] = None, collect_monitor: bool = True):
@@ -993,40 +1028,17 @@ class Experiment:
                                                        out_dir=out_dir)
 
     def run_scan(self, n_steps: Optional[int] = None):
-        """lax.scan runner: the whole run is ONE compiled XLA program
-        (monitor omitted; per-step cg2d diags stacked). This is the bench
-        and AD path — jax.checkpoint policies wrap this scan for adjoints."""
-        cfg, grid, op = self.cfg, self.grid, self.op
-        n = n_steps if n_steps is not None else cfg.nTimeSteps
-        forcing = self.forcing
-
-        hooks = {}
-        if self.cs_fill is not None:
-            hooks = {"fill": self.cs_fill.fill,
-                     "fill_uv": self.cs_fill.fill_uv,
-                     "fill_uv_cg": self.cs_fill.fill_uv_cg}
-
-        iters = cfg.nIter0 + jnp.arange(n)
-
-        # grid/op/forcing enter as jit ARGUMENTS (they are pytrees of
-        # device arrays): closed-over arrays would be inlined into the
-        # serialized module as literals, which bloats/defeats remote
-        # compilation for large domains
-        @jax.jit
-        def runner(state, grid_a, op_a, forcing_a):
-            def body(state, myIter):
-                new_state, diag = step_mod.forward_step(
-                    cfg, grid_a, op_a, state, forcing_a, myIter,
-                    kpp=self.kpp, ggl90=self.ggl90, vmix=self.vmix,
-                    opps=self.opps, seaice=self.seaice,
-                    obcs=self.obcs, op3=self.op3, rbcs=self.rbcs,
-                    aim=self.aim, zonfilt=self.zonfilt, **hooks)
-                # don't stack the per-step 2-D forcing snapshots
-                return new_state, diag._replace(forc=None)
-            return jax.lax.scan(body, state, iters)
-
-        final_state, diags = runner(self.state, grid, op, forcing)
+        """lax.scan runner: the run as ONE compiled XLA program (monitor
+        omitted; per-step cg2d diags stacked). Like run(), it continues
+        from wherever the previous run() or run_scan() call stopped."""
+        n = n_steps if n_steps is not None else self.cfg.nTimeSteps
+        if getattr(self, "_cur_iter", None) is None:
+            self._cur_iter = self.cfg.nIter0
+        iters = self._cur_iter + jnp.arange(n)
+        final_state, diags = self.make_scan_fn()(self.state, self.forcing,
+                                                 iters)
         self.state = final_state
+        self._cur_iter += n
         return final_state, diags
 
 

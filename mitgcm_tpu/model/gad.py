@@ -11,8 +11,8 @@ Scheme numbers follow the reference enum (pkg/generic_advdiff/GAD.h:19-110):
   77 non-linear flux limiter (Superbee), 7 OS7MP (later).
 
 All kernels are vectorized over the full 3-D field; the hot x/y flux
-passes are single fused elementwise chains, which XLA maps onto the TPU
-VPU as one HBM-bandwidth-bound sweep each.
+passes are single fused elementwise chains, which XLA compiles to one
+memory-bandwidth-bound sweep each.
 """
 
 from __future__ import annotations
@@ -475,9 +475,8 @@ def _osc_mul(s, mask, d1, d2):
         mval = mval * s(mask, off)
     # reference form: s1 = 1e5/(omax+z)^3, s2 = 1/(omin+z)^3, then
     # normalize.  Computed via the ratio q = ((omax+z)/(omin+z))^3 so no
-    # intermediate under/overflows (oval^3 spans ~1e-60..; TPU-emulated
-    # f64 only has the f32 exponent range); q -> inf gives the correct
-    # (0, 1) limit.
+    # intermediate under/overflows (oval^3 spans ~1e-60.., beyond the
+    # f32 exponent range); q -> inf gives the correct (0, 1) limit.
     q = ((omax + zero) / (omin + zero)) ** 3
     s1 = 1.0e5 / (1.0e5 + q)
     s2 = q / (1.0e5 + q)

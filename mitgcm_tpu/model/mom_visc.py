@@ -7,7 +7,7 @@ length scales L2/L3/L4rdt), mom_calc_tension.F / mom_calc_strain.F,
 mom_hdissip.F (strain-tension form), set_parms.F:125-149 (the
 useVariableVisc / useHarmonicVisc / useBiharmonicVisc switches).
 
-TPU design: everything is computed for all Nr levels at once as fused
+Design: everything is computed for all Nr levels at once as fused
 elementwise stencils — the reference's per-(bi,bj,k) scratch arrays
 become whole-domain 3-D ops that XLA fuses into the momentum step.
 """

@@ -13,7 +13,7 @@ Reference anatomy:
   obcs_u1_adv_tracer.F  1st-order-upwind advective flux across the OB
   obcs_prescribe_read.F / obcs_fields_load.F  record streaming from files
 
-TPU-native realization: the per-row/column OB index lists become static
+Realization: the per-row/column OB index lists become static
 one-hot 2-D scatter masks precomputed on the host (numpy), so every apply
 is a fused `where` inside the jitted step — no gather/scatter ops, no
 boundary loops.  Boundary values live in OBFields, a pytree of per-side
@@ -29,8 +29,10 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Dict, NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -375,10 +377,13 @@ def default_fields(cfg, pp: OBCSParams, dtype, m=None,
         # OBNptr = pTr(i, jn-1)*maskS(i, jn); OBSptr = pTr(i, js+1)
         # *maskS(i, js+1); OBEptr = pTr(ie-1, j)*maskW(ie, j);
         # OBWptr = pTr(iw+1, j)*maskW(iw+1, j)
-        pN = jnp.einsum("tkji,ji->tki", pTr, m.mNm1) * m.maskS_N[None]
-        pS = jnp.einsum("tkji,ji->tki", pTr, m.mSp1) * m.maskS_Sp1[None]
-        pE = jnp.einsum("tkji,ji->tkj", pTr, m.mEm1) * m.maskW_E[None]
-        pW = jnp.einsum("tkji,ji->tkj", pTr, m.mWp1) * m.maskW_Wp1[None]
+        # full-precision products: a GPU runs f32 einsums in TF32 unless
+        # told otherwise
+        pick = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+        pN = pick("tkji,ji->tki", pTr, m.mNm1) * m.maskS_N[None]
+        pS = pick("tkji,ji->tki", pTr, m.mSp1) * m.maskS_Sp1[None]
+        pE = pick("tkji,ji->tkj", pTr, m.mEm1) * m.maskW_E[None]
+        pW = pick("tkji,ji->tkj", pTr, m.mWp1) * m.maskW_Wp1[None]
     else:
         pN = pS = jnp.zeros((nptr, nr, nxp), dtype)
         pE = pW = jnp.zeros((nptr, nr, nyp), dtype)

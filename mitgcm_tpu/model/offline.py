@@ -9,7 +9,7 @@ IVDConvCount and the GM-Redi tensor components Kwx/Kwy/Kwz are loaded
 the same way, and temp/salt/mom stepping are all switched off
 (offline_reset_parms.F:23-25) so only passive tracers evolve.
 
-TPU design: all records of every field are pre-loaded into [nRec, ...]
+Design: all records of every field are pre-loaded into [nRec, ...]
 stacks at experiment construction (the verification decks hold 12
 monthly records of a 128x64x15 domain — a few MB); the per-step record
 selection is a traced gather + linear blend inside the jitted step, so

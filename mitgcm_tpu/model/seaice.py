@@ -1060,7 +1060,7 @@ class SeaIce:
             massC, massU, massV, forcex0, forcey0):
         """SEAICE_EVP (seaice_evp.F): (adaptive) elastic-viscous-plastic
         explicit subcycling — nEVPstarSteps stencil-only iterations in a
-        lax.fori_loop (the TPU-friendly VP solver: no tridiagonals, no
+        lax.fori_loop (a VP solver with no tridiagonals and no
         convergence branches).
 
         Implements the EVP* / revised-EVP time discretization (Bouillon

@@ -1,7 +1,7 @@
 """pkg/thsice: Winton (1999) 3-layer thermodynamic sea ice.
 
-TPU-native re-implementation of the reference package (file:line cites
-into /root/reference/pkg/thsice/):
+Re-implementation of the reference package (file:line cites into the
+reference's pkg/thsice/):
   * thsice_main.F        -- per-step driver (get_ocean -> map_exf ->
                             step_temp -> step_fwd)
   * thsice_get_ocean.F   -- mixed-layer fields from the ocean state
@@ -21,7 +21,7 @@ All per-cell branch ladders become jnp.where cascades; the surface
 temperature solve is a nitMaxTsf-iteration fori_loop of elementwise
 2-D ops with the reference's per-cell Terrmax freeze-out (a cell stops
 updating once |dTsrf| < Terrmax, solve4temp:358-362) — embarrassingly
-parallel on the TPU vector units.  THSICE_FRACEN_POWERLAW is compiled
+parallel over cells.  THSICE_FRACEN_POWERLAW is compiled
 in by default (THSICE_OPTIONS.h:11, powerLawExp2=2 in THSICE_SIZE.h)
 so the vertical/lateral energy partition uses the degree-5 power law.
 """

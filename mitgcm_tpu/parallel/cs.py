@@ -1,6 +1,6 @@
 """Cubed-sphere (6-facet) topology and halo exchange.
 
-The TPU-native replacement for the reference's exch2 package
+The replacement for the reference's exch2 package
 (pkg/exch2/W2_EXCH2_TOPOLOGY.h: per-tile neighbor lists with 2x2
 index-permutation matrices encoding face-edge rotation;
 w2_set_cs6_facets.F wires the 6-face cube). Here the topology is derived
@@ -11,8 +11,8 @@ grid files instead of hand-coded wiring.
 
 Fields are stored per-face: [..., 6, n + 2*ol, n + 2*ol]. Halo exchange
 is a precomputed flat gather (index + sign arrays), one `take` per field
-— on TPU this compiles to vectorized dynamic-slices; under shard_map the
-same maps drive ppermute sends between face-holding devices.
+— one gather kernel per fill; under shard_map the same maps drive the
+exchange between face-holding devices.
 
 Vector exchange follows the C-grid ownership rule of the cube: every
 cube edge pairs an E/N side with a W/S side, so each shared-edge normal

@@ -1,6 +1,6 @@
 """Distributed runner: shard_map domain decomposition over a device mesh.
 
-The TPU-native analog of the reference's nPx x nPy process grid
+The analog of the reference's nPx x nPy process grid
 (eesupp/src/ini_procs.F MPI_CART_CREATE): the horizontal domain is tiled
 over a 2-D jax.sharding.Mesh ("py","px"); every field is stored as stacked
 per-device halo-padded local blocks [npy, npx, ..., nyl+2oly, nxl+2olx],
@@ -206,14 +206,13 @@ class DistModel:
 class CSDistFills:
     """CS exchange hooks usable INSIDE shard_map over a "face" axis.
 
-    Strategy: all_gather the 6 face blocks (one collective over the ICI
-    ring), apply the exact single-host CSExchange gather maps on the
-    assembled [..., 6, nyp, nxp] array, then keep only this shard's face
-    — bit-identical to the single-host fills by construction.  The
+    Strategy: all_gather the 6 face blocks (one collective), apply the
+    exact single-host CSExchange gather maps on the assembled
+    [..., 6, nyp, nxp] array, then keep only this shard's face —
+    bit-identical to the single-host fills by construction.  The
     gathered strips a fill actually consumes live within 2*ol cells of
     the face edges, so an edge-strip all_gather is the obvious follow-up
-    optimisation; at cube sizes up to ~c96 the full-block gather is
-    already well under the per-step compute time."""
+    optimisation; what the full-block gather costs is not measured."""
 
     def __init__(self, ex, axis: str = "face"):
         self.ex = ex
@@ -254,7 +253,7 @@ class DistCSModel:
     face loop collapses to the one local block.  Cross-face halos ride
     CSDistFills (all_gather + the single-host CSExchange index maps);
     global reductions are lax.psum/pmax over the face axis — the
-    TPU-native replacement for the reference's EXCH2 cube topology +
+    replacement for the reference's EXCH2 cube topology +
     MPI_Allreduce (pkg/exch2/, eesupp/src/global_sum_tile.F)."""
 
     AXIS = "face"

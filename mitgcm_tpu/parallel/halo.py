@@ -1,4 +1,4 @@
-"""Distributed halo exchange: the TPU-native WRAPPER.
+"""Distributed halo exchange: the WRAPPER on a device mesh.
 
 Replaces the reference's eesupp EXCH engine (eesupp/src/exch_*.template:
 pack edge -> MPI_Isend/Recv -> unpack, 2-phase x-then-y with corner fill)

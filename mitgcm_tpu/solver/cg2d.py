@@ -3,8 +3,8 @@
 Reference: model/src/cg2d.F (solver), model/src/ini_cg2d.F (operator and
 preconditioner build). The iteration is a jax.lax.while_loop whose body is
 one fused XLA computation: 5-point operator + preconditioner + three global
-reductions; on a device mesh the dot products become jax.lax.psum over ICI
-and the halo refresh a ppermute — replacing the reference's per-iteration
+reductions; on a device mesh the dot products become jax.lax.psum and
+the halo refresh a ppermute — replacing the reference's per-iteration
 MPI_Allreduce + halo exchange (cg2d.F:243,264,295,327).
 
 The reverse-mode derivative of a converged CG solve is another CG solve
@@ -179,28 +179,31 @@ def cg2d(cfg: Config, grid: Grid, op: CG2DOperator, b, x0,
     cg2d.F (and the cg2d_nsa.F variant built for differentiability);
     the initial guess x0 gets zero gradient (the converged solution is
     independent of it), and the residual diagnostics are non-differentiable
-    auxiliaries.
+    auxiliaries. The operator is an argument of the rule, not a closure,
+    so that it may be a traced argument of the jitted model; like the
+    reference's cg2d adjoint it gets zero gradient.
     """
 
     @jax.custom_vjp
-    def solve(b_in, x0_in):
-        return _cg2d_raw(cfg, grid, op, b_in, x0_in, psum, fill, pmax)
+    def solve(b_in, x0_in, op_in):
+        return _cg2d_raw(cfg, op_in, b_in, x0_in, psum, fill, pmax)
 
-    def solve_fwd(b_in, x0_in):
-        res = _cg2d_raw(cfg, grid, op, b_in, x0_in, psum, fill, pmax)
-        return res, ()
+    def solve_fwd(b_in, x0_in, op_in):
+        res = _cg2d_raw(cfg, op_in, b_in, x0_in, psum, fill, pmax)
+        return res, op_in
 
-    def solve_bwd(_, ct):
+    def solve_bwd(op_in, ct):
         xbar = ct.x
-        adj = _cg2d_raw(cfg, grid, op, xbar, jnp.zeros_like(xbar),
+        adj = _cg2d_raw(cfg, op_in, xbar, jnp.zeros_like(xbar),
                         psum, fill, pmax)
-        return adj.x, jnp.zeros_like(adj.x)
+        return (adj.x, jnp.zeros_like(adj.x),
+                jax.tree.map(jnp.zeros_like, op_in))
 
     solve.defvjp(solve_fwd, solve_bwd)
-    return solve(b, x0)
+    return solve(b, x0, op)
 
 
-def _cg2d_raw(cfg: Config, grid: Grid, op: CG2DOperator, b, x0,
+def _cg2d_raw(cfg: Config, op: CG2DOperator, b, x0,
               psum=None, fill=None, pmax=None) -> CG2DResult:
     """Solve A x = b with first guess x0 (cg2d.F).
 

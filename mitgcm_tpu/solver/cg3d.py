@@ -7,7 +7,7 @@ solver/cg2d.py: the iteration is a jax.lax.while_loop whose body is one
 fused XLA computation — 7-point operator, a vertical tridiagonal
 forward/back substitution (two lax.scan's over levels, batched over the
 whole horizontal plane), and two global reductions.  On a device mesh
-the dots become psum over ICI and the halo refresh a ppermute.
+the dots become psum and the halo refresh a ppermute.
 """
 
 from __future__ import annotations
@@ -171,28 +171,33 @@ def cg3d(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
     custom VJP as cg2d: A symmetric, x = A^-1 b, b_bar = A^-1 x_bar)."""
 
     @jax.custom_vjp
-    def solve(b_in, x0_in):
-        return _cg3d_raw(cfg, grid, op, b_in, x0_in, psum, fill, pmax)
+    def solve(b_in, x0_in, op_in, maskC):
+        return _cg3d_raw(cfg, maskC, op_in, b_in, x0_in, psum, fill, pmax)
 
-    def solve_fwd(b_in, x0_in):
-        return _cg3d_raw(cfg, grid, op, b_in, x0_in, psum, fill, pmax), ()
+    def solve_fwd(b_in, x0_in, op_in, maskC):
+        res = _cg3d_raw(cfg, maskC, op_in, b_in, x0_in, psum, fill, pmax)
+        return res, (op_in, maskC)
 
-    def solve_bwd(_, ct):
-        adj = _cg3d_raw(cfg, grid, op, ct.x, jnp.zeros_like(ct.x),
+    def solve_bwd(res, ct):
+        op_in, maskC = res
+        adj = _cg3d_raw(cfg, maskC, op_in, ct.x, jnp.zeros_like(ct.x),
                         psum, fill, pmax)
-        return adj.x, jnp.zeros_like(adj.x)
+        # the operator and mask are arguments, not closures, so that they
+        # may be traced arguments of the jitted model; zero gradient
+        return (adj.x, jnp.zeros_like(adj.x),
+                jax.tree.map(jnp.zeros_like, op_in), jnp.zeros_like(maskC))
 
     solve.defvjp(solve_fwd, solve_bwd)
-    return solve(b, x0)
+    return solve(b, x0, op, grid.maskC)
 
 
-def _cg3d_raw(cfg: Config, grid: Grid, op: CG3DOperator, b, x0,
+def _cg3d_raw(cfg: Config, maskC, op: CG3DOperator, b, x0,
               psum=None, fill=None, pmax=None) -> CG3DResult:
     """cg3d.F solve of A x = b with warm start x0 (= previous phi_nh)."""
     dt = b.dtype
     oly, olx = cfg.oly, cfg.olx
     imask = interior_mask(b.shape[1:], oly, olx, dt,
-                          n_faces=cfg.nFaces)[None] * grid.maskC
+                          n_faces=cfg.nFaces)[None] * maskC
     if psum is None:
         psum = lambda s: s  # noqa: E731
     if pmax is None:

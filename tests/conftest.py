@@ -1,8 +1,8 @@
 import os
 
-# Force CPU with a virtual 8-device mesh for sharding tests, and f64
-# (verification digit-matching needs double precision; TPU bench runs use
-# their own entry points).
+# The tests run on the CPU in f64 (verification digit-matching needs double
+# precision), with 8 virtual devices for the sharding tests. The GPU path
+# is exercised by chip_smoke.py.
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
@@ -12,9 +12,6 @@ os.environ["JAX_ENABLE_X64"] = "1"
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-# Force computations onto the (8-virtual-device) CPU backend even when a TPU
-# plugin grabs the default platform: tests need exact f64 and a device mesh.
-jax.config.update("jax_default_device", jax.devices("cpu")[0])
 
 REFERENCE_DIR = "/root/reference"
 

@@ -182,3 +182,12 @@ def test_reference_config_latlon():
         ani = dist.untile(an, cfg.oly, cfg.olx)
         scale = max(1.0, float(np.max(np.abs(a1i))))
         assert np.allclose(a1i, ani, rtol=0, atol=1e-9 * scale), fname
+
+
+def test_dryrun_refuses_missing_devices():
+    """The dry run takes the devices it is asked for or fails; it does not
+    fall back to other devices."""
+    import __graft_entry__ as graft
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        graft.dryrun_multichip(16)
+    graft.dryrun_multichip(4)

@@ -108,3 +108,24 @@ def test_2plus2_seaice_labsea(tmp_path):
         a = np.asarray(getattr(e4.state, name))[..., ol:-ol, ol:-ol]
         b = np.asarray(getattr(e22.state, name))[..., ol:-ol, ol:-ol]
         assert np.array_equal(a, b), f"{name} differs after restart"
+
+
+def test_run_then_scan_continues():
+    """run_scan picks up where run() stopped: the Adams-Bashforth history
+    and the iteration counter carry over, so run(2) + run_scan(2) is the
+    4-step run up to the fusion differences of one program vs four."""
+    e4 = _make()
+    e4.run(n_steps=4, collect_monitor=False)
+
+    e22 = _make()
+    e22.run(n_steps=2, collect_monitor=False)
+    _, diags = e22.run_scan(n_steps=2)
+    assert e22._cur_iter == 4
+    assert np.asarray(diags.cg2d_iters).shape == (2,)
+
+    ol = e4.cfg.olx
+    for name in ("uVel", "vVel", "theta", "etaN", "guNm1"):
+        a = np.asarray(getattr(e4.state, name))[..., ol:-ol, ol:-ol]
+        b = np.asarray(getattr(e22.state, name))[..., ol:-ol, ol:-ol]
+        rel = np.max(np.abs(a - b)) / np.max(np.abs(a))
+        assert rel <= 1e-13, (name, rel)
